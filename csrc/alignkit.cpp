@@ -17,8 +17,6 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
-#include <string>
-#include <unordered_map>
 #include <vector>
 
 extern "C" {
@@ -95,37 +93,6 @@ struct Opt {
     int64_t k;
 };
 
-// ---------------------------------------------------------------------
-// fill session — the TPU speculative-batching hooks (the C-speed analog
-// of ops/align.py's _fill_collect/_fill_cache globals).  Mode 1
-// (collect): every APPROX_MAX gap fill is recorded and answered with
-// the same fake ez the Python collect pass uses; mode 2 (table): fills
-// are answered from the device-computed result table, any miss computes
-// locally (byte-exact either way).  Collect runs single-threaded
-// (pipeline._prefill_device); the table is read-only during the
-// (possibly threaded) real pass.
-struct FillSession {
-    int mode = 0;
-    std::vector<int64_t> meta;          // 4 per fill: ql, tl, w, zdrop
-    std::vector<uint8_t> qblob, tblob;
-    std::unordered_map<std::string, size_t> table;
-    std::vector<int32_t> t_score;
-    std::vector<uint32_t> t_cig_blob;
-    std::vector<int64_t> t_cig_off;     // n+1 offsets into t_cig_blob
-};
-FillSession g_fill;
-
-std::string fill_key(const uint8_t *q, int64_t ql, const uint8_t *t,
-                     int64_t tl, int64_t w, int64_t zdrop) {
-    std::string k;
-    k.reserve((size_t)(ql + tl) + 32);
-    int64_t hdr[4] = {ql, tl, w, zdrop};
-    k.append((const char *)hdr, sizeof hdr);
-    k.append((const char *)q, (size_t)ql);
-    k.append((const char *)t, (size_t)tl);
-    return k;
-}
-
 // mm_align_pair (align.c:316-342) for the non-splice path
 void align_pair_c(const Opt &o, const uint8_t *q, int64_t ql,
                   const uint8_t *t, int64_t tl, const int8_t *mat,
@@ -135,44 +102,6 @@ void align_pair_c(const Opt &o, const uint8_t *q, int64_t ql,
     if (o.max_sw_mat > 0 && tl * ql > o.max_sw_mat) {
         ez.zdropped = 1;
         return;
-    }
-    // fill-session hook: same eligibility as ops/align.py::_align_pair
-    // ("fill" kind) — APPROX_MAX exactly, both sides non-empty, dual
-    // gap costs in play
-    if (g_fill.mode != 0 && flag == EZ_APPROX_MAX && ql > 0 && tl > 0
-        && !(o.q == o.q2 && o.e == o.e2)) {
-        if (g_fill.mode == 1) {         // collect + fake (align._fake_ez)
-            int64_t m4[4] = {ql, tl, w, zdrop};
-            g_fill.meta.insert(g_fill.meta.end(), m4, m4 + 4);
-            g_fill.qblob.insert(g_fill.qblob.end(), q, q + ql);
-            g_fill.tblob.insert(g_fill.tblob.end(), t, t + tl);
-            ez.score = 0;
-            ez.max = 0;
-            ez.max_q = (int32_t)(ql - 1);
-            ez.max_t = (int32_t)(tl - 1);
-            // Fake must CONSUME both sequences exactly: the epilogue's
-            // cigar-extent consistency check (qoff/toff vs the region
-            // coordinates) otherwise declines the whole region with -2
-            // and the Python oracle redoes it — measured 5x the collect
-            // pass on a flowcell.  Outputs of the collect pass are
-            // discarded, so the op content is free as long as lengths
-            // add up.
-            ez.cig.assign(1, (uint32_t)(std::min(ql, tl) << 4) | OP_M);
-            if (ql > tl)
-                ez.cig.push_back((uint32_t)((ql - tl) << 4) | OP_I);
-            else if (tl > ql)
-                ez.cig.push_back((uint32_t)((tl - ql) << 4) | OP_D);
-            return;
-        }
-        auto it = g_fill.table.find(fill_key(q, ql, t, tl, w, zdrop));
-        if (it != g_fill.table.end()) {
-            const size_t i = it->second;
-            ez.score = g_fill.t_score[i];
-            ez.cig.assign(
-                g_fill.t_cig_blob.begin() + g_fill.t_cig_off[i],
-                g_fill.t_cig_blob.begin() + g_fill.t_cig_off[i + 1]);
-            return;
-        }                               // miss: local kernel below
     }
     int32_t out[10];
     std::vector<uint32_t> buf(ql + tl + 4);
@@ -756,17 +685,7 @@ extern "C" int64_t mmt_align1(
                 align_pair_c(o, qsub, ql, tsub, tl, mat, bw1, -1, o.zdrop,
                              EZ_APPROX_MAX, ez);
             }
-            // Collect mode (g_fill.mode == 1): the fill answer is a fake
-            // giant-M cigar, on which mm_test_zdrop fires for every
-            // divergent gap and the "lift approximate Z-drop" branch
-            // below would re-run the FULL local kernel per gap — 5x the
-            // whole collect pass, measured.  Skip the test: the zdrop
-            // decision belongs to the REAL pass (real cigars); skipping
-            // the early break only makes collect record the tail gaps
-            // too, which the real pass's split regions need anyway, and
-            // zcode re-fills run with flag 0 (non-APPROX_MAX) so they
-            // never consult the table either way.
-            int32_t zcode = g_fill.mode == 1 ? 0 : mmt_test_zdrop(
+            int32_t zcode = mmt_test_zdrop(
                 qsub, tsub, ez.cig.data(), (int64_t)ez.cig.size(), mat,
                 (int32_t)o.q, (int32_t)o.e, (int32_t)o.zdrop,
                 (int32_t)o.zdrop_inv, (int32_t)o.max_gap,
@@ -919,61 +838,4 @@ extern "C" int64_t mmt_align1(
     }
     std::memcpy(cigar_out, rcig.data(), rcig.size() * 4);
     return (int64_t)rcig.size();
-}
-
-// ---------------------------------------------------------------------
-// fill-session C API (mm2_gb_tpu/utils/native.py bindings)
-
-extern "C" void mmt_fill_mode(int32_t mode) {
-    g_fill.mode = mode;
-    if (mode == 1) {
-        g_fill.meta.clear();
-        g_fill.qblob.clear();
-        g_fill.tblob.clear();
-    }
-    if (mode == 0) {
-        g_fill.table.clear();
-        g_fill.t_score.clear();
-        g_fill.t_cig_blob.clear();
-        g_fill.t_cig_off.clear();
-    }
-}
-
-extern "C" void mmt_fill_counts(int64_t *n, int64_t *qbytes,
-                                int64_t *tbytes) {
-    *n = (int64_t)(g_fill.meta.size() / 4);
-    *qbytes = (int64_t)g_fill.qblob.size();
-    *tbytes = (int64_t)g_fill.tblob.size();
-}
-
-extern "C" void mmt_fill_fetch(int64_t *meta, uint8_t *qblob,
-                               uint8_t *tblob) {
-    std::memcpy(meta, g_fill.meta.data(), g_fill.meta.size() * 8);
-    std::memcpy(qblob, g_fill.qblob.data(), g_fill.qblob.size());
-    std::memcpy(tblob, g_fill.tblob.data(), g_fill.tblob.size());
-}
-
-// Bulk table load: n results with per-fill meta4 (ql, tl, w, zdrop),
-// concatenated sequences (off arrays of n+1) and concatenated
-// RLE cigars (uint32, off array of n+1).  Duplicate keys keep the
-// first entry (all duplicates carry identical results).
-extern "C" void mmt_fill_table_bulk(
-    int64_t n, const int64_t *meta, const int64_t *qoff,
-    const uint8_t *qblob, const int64_t *toff, const uint8_t *tblob,
-    const int32_t *scores, const int64_t *cig_off,
-    const uint32_t *cig_blob) {
-    g_fill.table.reserve(g_fill.table.size() + (size_t)n * 2);
-    for (int64_t i = 0; i < n; ++i) {
-        const int64_t ql = meta[i * 4], tl = meta[i * 4 + 1];
-        std::string k = fill_key(qblob + qoff[i], ql, tblob + toff[i], tl,
-                                 meta[i * 4 + 2], meta[i * 4 + 3]);
-        auto ins = g_fill.table.emplace(std::move(k), g_fill.t_score.size());
-        if (!ins.second) continue;
-        g_fill.t_score.push_back(scores[i]);
-        if (g_fill.t_cig_off.empty()) g_fill.t_cig_off.push_back(0);
-        g_fill.t_cig_blob.insert(g_fill.t_cig_blob.end(),
-                                 cig_blob + cig_off[i],
-                                 cig_blob + cig_off[i + 1]);
-        g_fill.t_cig_off.push_back((int64_t)g_fill.t_cig_blob.size());
-    }
 }

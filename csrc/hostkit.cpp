@@ -1,15 +1,15 @@
 // hostkit: native implementations of the sequential host-side components.
 //
-// The TPU owns the chaining/alignment compute path; these routines cover the
-// remaining host work that is too branchy/sequential for vector units:
+// The GPU owns the chaining DP; these routines cover the remaining host
+// work that is too branchy/sequential for vector units:
 //   - mmt_sketch:        (w,k)-minimizer sketch (semantics of sketch.c:77-143)
 //   - mmt_radix_perm64:  the permutation of the reference's unstable MSD
 //                        radix sort on a 64-bit key (ksort.h), needed for
 //                        byte-exact tie ordering
 //   - mmt_chain_dp:      backward chain DP scores/predecessors
 //                        (mg_lchain_dp core, lchain.c:169-207) with
-//                        max_skip = infinity — the host fallback for
-//                        segments that exceed device capacity
+//                        max_skip = infinity — the oracle the device
+//                        kernel is checked against, and the host path
 //
 // Exposed with C linkage and called from Python via ctypes
 // (mm2_gb_tpu/utils/native.py).  Each function is cross-checked against the
@@ -355,7 +355,7 @@ void mmt_idx_lookup(const uint64_t* uniq, const int64_t* start,
 }
 
 // Successor-range selection (plrange.cu:38-76 analog; semantics of
-// chain_tpu.compute_ranges): rng[i] = #successors j>i in the same
+// chain_device.compute_ranges): rng[i] = #successors j>i in the same
 // (read, strand, rid) group with rpos_j <= rpos_i + max_dist, capped at
 // max_iter.  Positions ascend within a group, so a two-pointer scan is
 // O(n) — replaces two O(n log n) cache-hostile searchsorted passes.
@@ -386,136 +386,6 @@ void mmt_compute_ranges(const uint64_t* ax, int64_t n,
             int64_t r = j - i - 1;
             rng[i] = (int32_t)(r < max_iter ? r : max_iter);
         }
-    }
-}
-
-// Packed-layout helpers for the chain kernel (chain_tpu.pack_class_meta):
-// per-row range max (np.maximum.at is pathologically slow) and the
-// per-tile dynamic window starts (first padded row whose range reaches
-// into the tile).
-void mmt_scatter_max(int32_t* out, const int64_t* rows,
-                     const int32_t* vals, int64_t n) {
-    for (int64_t i = 0; i < n; ++i)
-        if (vals[i] > out[rows[i]]) out[rows[i]] = vals[i];
-}
-
-void mmt_tile_starts(const int32_t* rmax, int64_t H, int64_t W,
-                     int64_t tile, int64_t n_tiles, int32_t* start) {
-    for (int64_t i = 0; i < n_tiles; ++i) {
-        int64_t t0 = i * tile;
-        int64_t hi = t0 + W + tile - 1;
-        if (hi > H) hi = H;
-        int32_t ans = (int32_t)(W + tile - 1);
-        for (int64_t r = t0; r < hi; ++r) {
-            int64_t reach = r + (rmax[r] < W ? rmax[r] : W);
-            if (reach >= t0 + W) { ans = (int32_t)(r - t0); break; }
-        }
-        start[i] = ans;
-    }
-}
-
-// LPT lane packing for the device chain kernel's [rows, lanes] layout
-// (chain_tpu._pack_lanes): longest segment first onto the currently
-// shortest lane; ties broken by lane index (== Python heapq (h, lane)
-// tuple order, so packings are bit-identical to the Python fallback).
-void mmt_lpt_pack(const int64_t* lens, int64_t n, int64_t lanes,
-                  int64_t* lane_of, int64_t* off_of, int64_t* height_out) {
-    std::vector<int64_t> order(n);
-    for (int64_t i = 0; i < n; ++i) order[i] = i;
-    std::stable_sort(order.begin(), order.end(),
-                     [&](int64_t a, int64_t b) { return lens[a] > lens[b]; });
-    // binary min-heap over (height, lane)
-    std::vector<std::pair<int64_t, int64_t>> heap(lanes);
-    for (int64_t l = 0; l < lanes; ++l) heap[l] = {0, l};
-    auto cmp = [](const std::pair<int64_t, int64_t>& a,
-                  const std::pair<int64_t, int64_t>& b) { return a > b; };
-    std::make_heap(heap.begin(), heap.end(), cmp);
-    for (int64_t k = 0; k < n; ++k) {
-        int64_t si = order[k];
-        std::pop_heap(heap.begin(), heap.end(), cmp);
-        auto [h, lane] = heap.back();
-        lane_of[si] = lane;
-        off_of[si] = h;
-        heap.back() = {h + lens[si], lane};
-        std::push_heap(heap.begin(), heap.end(), cmp);
-    }
-    int64_t hmax = 0;
-    for (auto& e : heap) hmax = std::max(hmax, e.first);
-    *height_out = hmax;
-}
-
-// Fused per-class operand pack for the 10 B/anchor flat uplink
-// (chain_tpu.dispatch_scores): x/y stay int32, rng narrows to int16
-// (in-class ranges are <= the window class <= 5120), and the scatter
-// coordinate row is DROPPED — the device derives rows/cols from the
-// per-segment metadata the Python side appends to the same flat buffer.
-void mmt_pack_class_flat(const int64_t* cuts, const int64_t* sel,
-                         int64_t n_sel, const int64_t* off_of,
-                         const int32_t* x32, const int32_t* y32,
-                         const int32_t* rng, int64_t W,
-                         int32_t* fx, int32_t* fy, int16_t* fr,
-                         int64_t* src_out, int32_t* rmax,
-                         int64_t* pairs_out) {
-    int64_t m = 0;
-    int64_t pairs = 0;
-    for (int64_t k = 0; k < n_sel; ++k) {
-        const int64_t si = sel[k];
-        const int64_t g0 = cuts[si], g1 = cuts[si + 1];
-        const int64_t row0 = W + off_of[k];
-        for (int64_t g = g0; g < g1; ++g, ++m) {
-            const int64_t row = row0 + (g - g0);
-            const int32_t r = rng[g];
-            fx[m] = x32[g];
-            fy[m] = y32[g];
-            fr[m] = (int16_t)r;
-            src_out[m] = g;
-            if (r > rmax[row]) rmax[row] = r;
-            pairs += r;
-        }
-    }
-    *pairs_out = pairs;
-}
-
-// Fill-plan window checks (ksw2_tpu.plan_fill_light fast path): for each
-// (qlen, tlen, w) fill, decide drop (empty band window / band-width
-// overflow / rebase-step violation) and the true row count — the exact
-// scalar form of _row_params + the per-block base validation.  C's >>
-// on a negative int64 is an arithmetic shift (floor), matching numpy.
-void mmt_fill_check(const int64_t* qlen, const int64_t* tlen,
-                    const int64_t* w, int64_t n, int64_t Wband,
-                    uint8_t* dropped, int64_t* r_true_out) {
-    for (int64_t i = 0; i < n; ++i) {
-        const int64_t ql = qlen[i], tl = tlen[i], wv = w[i];
-        int64_t rt = ql + tl - 1;
-        uint8_t drop = 0;
-        int64_t base = 0, prev_base = -1;
-        for (int64_t r = 0; r < rt; ++r) {
-            int64_t st0 = 0;
-            if (r - ql + 1 > st0) st0 = r - ql + 1;
-            const int64_t t1 = (r - wv + 1) >> 1;
-            if (t1 > st0) st0 = t1;
-            int64_t en0 = tl - 1;
-            if (r < en0) en0 = r;
-            const int64_t t2 = (r + wv) >> 1;
-            if (t2 < en0) en0 = t2;
-            if (st0 > en0) {    // first empty window truncates r_true
-                drop = 1;
-                rt = r;
-                break;
-            }
-            if ((r & 31) == 0) {
-                int64_t b = st0 / 16 * 16 - 16;
-                if (b < 0) b = 0;
-                if (prev_base >= 0 && (b - prev_base > 48 || b < prev_base))
-                    drop = 1;   // rebase step violation (defensive)
-                prev_base = b;
-                base = b;
-            }
-            const int64_t en = (en0 + 16) / 16 * 16 - 1;
-            if (en - base >= Wband) drop = 1;  // band-width overflow
-        }
-        dropped[i] = drop;
-        r_true_out[i] = rt;
     }
 }
 

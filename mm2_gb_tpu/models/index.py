@@ -1,7 +1,7 @@
 """Minimizer index: sorted-table design.
 
 Replaces the reference's bucketed khash index (index.c:27-98) with a
-TPU/vector-friendly layout: one sorted array of (minimizer_hash, packed
+vector-friendly layout: one sorted array of (minimizer_hash, packed
 position) entries searched with vectorized binary search.  Lookup results
 are identical to the reference — per hash, hits come out sorted ascending
 by packed position (the reference sorts its p[] arrays the same way,

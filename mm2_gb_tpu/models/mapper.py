@@ -1,7 +1,7 @@
 """Per-read mapping orchestration (the mm_map_frag pipeline, map.c:638-792).
 
 This is the host-side reference pipeline: seed → chain → post-process.
-The TPU batch pipeline (mm2_gb_tpu/models/pipeline.py) produces identical
+The device batch pipeline (mm2_gb_tpu/models/pipeline.py) produces identical
 results by running the chaining stage on-device for batches of reads and
 falling back to this path for reads that miss a batch (the reference uses
 the same CPU-fallback strategy, map.c:1030-1035).

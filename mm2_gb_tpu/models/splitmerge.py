@@ -64,11 +64,11 @@ def map_multipart(target: str, paths: list[str], io, mo, out,
                     sys.stderr.write(
                         "[WARNING] For a multi-part index, no @SQ lines "
                         "will be outputted. Please use --split-prefix.\n")
-            if (mo.flag & O.MM_F_TPU_CHAIN) and len(paths) == 1 \
+            if (mo.flag & O.MM_F_GPU_CHAIN) and len(paths) == 1 \
                     and not (mo.flag & O.MM_F_FRAG_MODE):
                 from mm2_gb_tpu.cli import res_regs_out
-                from mm2_gb_tpu.models.pipeline import map_file_tpu_records
-                for sr, regs in map_file_tpu_records(index, mo, paths):
+                from mm2_gb_tpu.models.pipeline import map_file_device_records
+                for sr, regs in map_file_device_records(index, mo, paths):
                     res_regs_out(out, index, mo, sr.rec, regs, sr.rep_len,
                                  is_sam, rg_id, 0, 1, [regs])
             else:
@@ -99,14 +99,14 @@ def map_multipart(target: str, paths: list[str], io, mo, out,
             sys.stderr.write(f"[M::split] mapping against part {n_parts} "
                              f"({index.n_seq} sequences)\n")
         results = []
-        if (mo.flag & O.MM_F_TPU_CHAIN) and len(map_paths) == 1 \
+        if (mo.flag & O.MM_F_GPU_CHAIN) and len(map_paths) == 1 \
                 and not (mo.flag & O.MM_F_FRAG_MODE):
-            # per-part TPU mapping (beyond the reference GPU path, which
+            # per-part device mapping (beyond the reference GPU path, which
             # is single-index only, plchain.cu:499): each part runs the
             # full device pipeline; the merge pass is unchanged
             from mm2_gb_tpu.models.mapper import _chain_gaps
-            from mm2_gb_tpu.models.pipeline import map_file_tpu_records
-            for sr, regs in map_file_tpu_records(index, mo, map_paths):
+            from mm2_gb_tpu.models.pipeline import map_file_device_records
+            for sr, regs in map_file_device_records(index, mo, map_paths):
                 frag_gap = _chain_gaps(mo, sr.rec.length)[1]
                 results.append((regs, sr.rep_len, frag_gap))
         else:

@@ -1,27 +1,26 @@
-"""Multi-chip / multi-host parallel mapping (SURVEY.md §5.8).
+"""Multi-GPU / multi-host parallel mapping (SURVEY.md §5.8).
 
-The reference is strictly single-node/single-GPU; this layer is the
-TPU-native scaling design built new:
+The reference is strictly single-node/single-GPU; this layer is built
+new:
 
-- mesh axes ('data',); the minimizer index is replicated (it is small
-  relative to HBM for typical references) while read batches are
-  data-parallel sharded across all chips;
-- chaining is embarrassingly parallel across reads/segments, so the hot
-  loop has NO inter-chip communication; each chip runs the blocked
-  Pallas chain kernel on its shard of packed anchor lanes via shard_map;
-- only per-read chain summaries return to hosts, and final PAF records
-  merge deterministically by the global read id assigned at ingest (the
-  same merge key the reference uses for output order, map.c:1284-1285).
+- the minimizer index stays on the host, and each macro-batch's reads
+  are split into contiguous, anchor-balanced shards, one per card;
+- chaining is embarrassingly parallel across reads, so there is NO
+  inter-card communication: each card runs the chain kernel on its own
+  shard (computation follows the committed operands);
+- results return to the host, and output keeps the input read order;
+  multi-host ranks write shards that merge deterministically by the
+  global read id assigned at ingest (the same merge key the reference
+  uses for output order, map.c:1284-1285).
 """
 
 from __future__ import annotations
 
-import functools
+import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh
 
 
 def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
@@ -29,113 +28,6 @@ def make_mesh(n_devices: int | None = None, axis: str = "data") -> Mesh:
     if n_devices is not None:
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis,))
-
-
-def sharded_chain_packed(mesh: Mesh, ntiles, start, X, Y, R, *, W, span,
-                         max_dist_x, max_dist_y, bw, cg, cs):
-    """Data-parallel blocked chain kernel over a device mesh.
-
-    Inputs carry a leading device axis: ntiles [D,1], start [D,T],
-    X/Y/R [D,H,128].  Each device runs the same Pallas kernel on its
-    shard — zero collectives in the hot loop.  Returns (f, p) with the
-    same sharding.
-    """
-    from jax.experimental.shard_map import shard_map
-
-    from mm2_gb_tpu.ops.chain_tpu import chain_packed_tpu
-
-    axis = mesh.axis_names[0]
-    spec = P(axis)
-
-    def body(nt, st, x, y, r):
-        f, p = chain_packed_tpu(nt[0], st[0], x[0], y[0], r[0], W=W,
-                                span=span, max_dist_x=max_dist_x,
-                                max_dist_y=max_dist_y, bw=bw, cg=cg, cs=cs)
-        return f[None], p[None]
-
-    fn = shard_map(body, mesh=mesh,
-                   in_specs=(spec, spec, spec, spec, spec),
-                   out_specs=(spec, spec), check_rep=False)
-    return jax.jit(fn)(ntiles, start, X, Y, R)
-
-
-def chain_batch_multichip(mesh: Mesh, ax: np.ndarray, ay: np.ndarray,
-                          read_bounds: np.ndarray, max_dist_x: int,
-                          max_dist_y: int, bw: int, max_iter: int,
-                          cg: float, cs: float
-                          ) -> tuple[np.ndarray, np.ndarray]:
-    """Chain-score a macro-batch with reads sharded across the mesh.
-
-    Host packs each device's shard of reads into the padded lane layout;
-    one shard_map launch scores all shards concurrently; results scatter
-    back into the global (f, p) arrays.  Single-device meshes reduce to
-    the single-chip path.
-    """
-    from mm2_gb_tpu.ops import chain_tpu as CT
-
-    n_dev = int(np.prod(mesh.devices.shape))
-    n = ax.shape[0]
-    f_out = np.zeros(n, np.int32)
-    p_out = np.full(n, -1, np.int64)
-    if n == 0:
-        return f_out, p_out
-    if max_dist_x < bw:
-        max_dist_x = bw
-    if max_dist_y < bw:
-        max_dist_y = bw
-    span = int((int(ay[0]) >> 32) & 0xFF)
-    W = CT.WINDOW_CLASSES[0]
-
-    # contiguous read shards balanced by anchor count (_shard_reads is
-    # defined below; module-level def order doesn't matter at call time)
-    shard_bounds = _shard_reads(read_bounds, n_dev)
-
-    packs = []
-    for d in range(n_dev):
-        r0, r1 = int(shard_bounds[d]), int(shard_bounds[d + 1])
-        s, e = int(read_bounds[r0]), int(read_bounds[r1])
-        sub_bounds = (read_bounds[r0:r1 + 1] - s).astype(np.int64)
-        axs, ays = ax[s:e], ay[s:e]
-        rng = CT.compute_ranges(axs, sub_bounds, max_dist_x, max_iter)
-        cuts = CT.cut_segments(rng)
-        seg_lens = np.diff(cuts)
-        seg_of = np.repeat(np.arange(seg_lens.shape[0]), seg_lens)
-        row_of = np.arange(axs.shape[0], dtype=np.int64) - \
-            np.repeat(cuts[:-1], seg_lens)
-        x32 = (axs & np.uint64(0xFFFFFFFF)).astype(np.int32)
-        y32 = (ays & np.uint64(0xFFFFFFFF)).astype(np.int32)
-        sel = np.arange(seg_lens.shape[0])
-        packs.append((CT.pack_class(sel, seg_lens, seg_of, row_of, rng,
-                                    x32, y32, W), s, rng))
-
-    # pad shards to a common tile count (uniform shapes for shard_map)
-    t_max = max(int(p[0][0][0]) for p in packs)
-    H = W + t_max * CT.TILE
-    NT = np.zeros((n_dev, 1), np.int32)
-    ST = np.full((n_dev, t_max), W + CT.TILE - 1, np.int32)
-    XA = np.zeros((n_dev, H, CT.LANES), np.int32)
-    YA = np.zeros_like(XA)
-    RA = np.zeros_like(XA)
-    for d, (pk, s, rng) in enumerate(packs):
-        ntiles, start, X, Y, R, src, rows, cols = pk
-        nt = int(ntiles[0])
-        NT[d, 0] = nt
-        ST[d, :nt] = start
-        XA[d, :X.shape[0]] = X
-        YA[d, :Y.shape[0]] = Y
-        RA[d, :R.shape[0]] = R
-
-    f, p = sharded_chain_packed(make_mesh(n_dev) if mesh is None else mesh,
-                                NT, ST, XA, YA, RA, W=W, span=span,
-                                max_dist_x=max_dist_x, max_dist_y=max_dist_y,
-                                bw=bw, cg=cg, cs=cs)
-    f, p = jax.device_get((f, p))
-    for d, (pk, s, rng) in enumerate(packs):
-        _, _, X, _, _, src, rows, cols = pk
-        f_out[s + src] = f[d][rows, cols]
-        prel = p[d][rows, cols].astype(np.int64)
-        p_out[s + src] = np.where(prel > 0, s + src - prel, -1)
-    return f_out, p_out
 
 
 def merge_paf_shards(shards: list[list[tuple[int, str]]]) -> list[str]:
@@ -163,14 +55,16 @@ from mm2_gb_tpu.utils.opts import MM_F_SPLICE as _SPLICE_FLAG
 
 def dispatch_batch_multichip(index, opt, seeded, mesh, metrics=None):
     """Launch chain scoring for a seeded batch with reads data-parallel
-    across the mesh devices — one async dispatch_scores per chip on its
+    across the mesh devices — one async dispatch_scores per card on its
     contiguous anchor-balanced shard (no collectives: chaining is
     embarrassingly parallel across reads, SURVEY.md §5.8).  Returns the
     state consumed by finish_batch_multichip."""
     from mm2_gb_tpu.models.mapper import _chain_gaps
-    from mm2_gb_tpu.ops import chain_tpu as CT
+    from mm2_gb_tpu.ops import chain_device as CT
 
     devs = list(mesh.devices.flat)
+    if metrics is not None:
+        metrics.n_batches += 1
     bounds = np.zeros(len(seeded) + 1, dtype=np.int64)
     for i, sr in enumerate(seeded):
         bounds[i + 1] = bounds[i] + sr.ax.shape[0]
@@ -190,6 +84,8 @@ def dispatch_batch_multichip(index, opt, seeded, mesh, metrics=None):
         if e == s:
             continue
         sub_bounds = (bounds[r0:r1 + 1] - s).astype(np.int64)
+        if metrics is not None:
+            metrics.dev_anchors[d] = metrics.dev_anchors.get(d, 0) + e - s
         pend = CT.dispatch_scores(ax[s:e], ay[s:e], sub_bounds,
                                   max_gap_ref, max_gap_qry, opt.bw,
                                   opt.max_chain_iter, float(cg), float(cs),
@@ -202,41 +98,45 @@ def dispatch_batch_multichip(index, opt, seeded, mesh, metrics=None):
 def finish_batch_multichip(index, opt, state, metrics=None, pool=None):
     """Collect every shard's scores and run the host finish path in
     global read order; returns [(SeededRead, regions)]."""
-    from mm2_gb_tpu.models.pipeline import (_prefill_device,
-                                            _use_device_align,
-                                            finish_slices)
+    import time
+
+    from mm2_gb_tpu.models.pipeline import finish_slices
 
     seeded, bounds, pends = state
     n = int(bounds[-1])
     f = np.zeros(n, np.int32)
     p = np.full(n, -1, np.int64)
+    t0 = time.perf_counter()
     for pend, s, e in pends:
         fs, ps = pend.collect()
         f[s:e] = fs
         p[s:e] = np.where(ps >= 0, ps + s, -1)
+    t1 = time.perf_counter()
     slices = []
     for i, sr in enumerate(seeded):
         s, e = int(bounds[i]), int(bounds[i + 1])
         fp = f[s:e]
         pp = np.where(p[s:e] >= 0, p[s:e] - s, -1)
         slices.append((sr, fp, pp))
-    if _use_device_align(opt):  # same --tpu-align batching as single-chip
-        _prefill_device(index, opt, slices)
-    return finish_slices(index, opt, slices, pool)
+    out = finish_slices(index, opt, slices, pool)
+    if metrics is not None:
+        metrics.t_wait += t1 - t0
+        metrics.t_finish += time.perf_counter() - t1
+    return out
 
 
 def map_file_multichip(index, opt, paths, mesh, metrics=None,
                        n_threads: int = 1):
     """Stream (SeededRead, regions) with reads data-parallel across the
-    mesh — the multi-chip end-to-end mapping driver.  Double-buffered
-    like the single-chip path: all chips score batch N while the host
+    mesh — the multi-GPU end-to-end mapping driver.  Double-buffered
+    like the single-card path: all cards score batch N while the host
     finishes batch N-1; n_threads > 1 fans the per-read finish out over
     a thread pool (kt_for analog, ordered emit)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mm2_gb_tpu.models.pipeline import TpuMetrics, _acc_batches
+    from mm2_gb_tpu.models.pipeline import ChainMetrics, _acc_batches
 
-    metrics = metrics or TpuMetrics()
+    metrics = metrics or ChainMetrics()
     pool = (ThreadPoolExecutor(max_workers=n_threads)
             if n_threads > 1 else None)
     try:
@@ -255,6 +155,17 @@ def map_file_multichip(index, opt, paths, mesh, metrics=None,
             pool.shutdown(wait=True)
 
 
+def bind_rank_to_card(rank: int) -> None:
+    """Give one rank of a multi-process run one card of its host (card
+    rank mod the host's card count); a JAX process otherwise reserves
+    memory on every card it sees.  Must run before the backend starts.
+    No-op on hosts without NVIDIA cards."""
+    gpus = "/proc/driver/nvidia/gpus"
+    if os.path.isdir(gpus) and os.listdir(gpus):
+        jax.config.update("jax_cuda_visible_devices",
+                          str(rank % len(os.listdir(gpus))))
+
+
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> int:
@@ -271,23 +182,3 @@ def init_distributed(coordinator: str | None = None,
                                 num_processes=num_processes,
                                 process_id=process_id)
     return _jax.process_index()
-
-
-# kept for the XLA-only portability path (CPU debugging without Pallas)
-def sharded_chain_step(mesh: Mesh, x, y, span, rng, *, L, W, max_dist_x,
-                       max_dist_y, bw, cg, cs):
-    """Lane-sharded forward DP using the pure-XLA kernel."""
-    from mm2_gb_tpu.ops.chain_xla import chain_bucket_xla
-
-    axis = mesh.axis_names[0]
-    sh = NamedSharding(mesh, P(None, axis))
-
-    @functools.partial(jax.jit,
-                       in_shardings=(sh, sh, sh, sh),
-                       out_shardings=(sh, sh))
-    def step(x, y, span, rng):
-        return chain_bucket_xla(x, y, span, rng, L=L, W=W,
-                                max_dist_x=max_dist_x,
-                                max_dist_y=max_dist_y, bw=bw, cg=cg, cs=cs)
-
-    return step(x, y, span, rng)

@@ -1,6 +1,6 @@
 """Deterministic merge of multi-host PAF/SAM shards (SURVEY.md §5.8).
 
-Each rank of a `--tpu-nproc N -o OUT` run writes OUT.shard<r> plus
+Each rank of a `--gpu-nproc N -o OUT` run writes OUT.shard<r> plus
 OUT.shard<r>.idx with one `(file_ordinal, global_read_idx, n_lines)`
 record per mapped read, a sort-first `(-1, -1)` record for the SAM
 header on rank 0, and a trailing `#done <n_records>` sentinel.  This

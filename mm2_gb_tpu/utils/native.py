@@ -2,7 +2,7 @@
 
 The host-kit provides fast native implementations of the sequential host
 components (minimizer sketch, radix permutation, chain backtracking) used
-outside the TPU compute path.  Everything here has a pure-NumPy/Python
+outside the device compute path.  Everything here has a pure-NumPy/Python
 fallback, so the package works without the native library; tests cross-check
 the two.
 """
@@ -119,20 +119,9 @@ def _load():
     ]
     i64p = ctypes.POINTER(ctypes.c_int64)
     u64p = ctypes.POINTER(ctypes.c_uint64)
-    lib.mmt_lpt_pack.restype = None
-    lib.mmt_lpt_pack.argtypes = [
-        i64p, ctypes.c_int64, ctypes.c_int64, i64p, i64p, i64p,
-    ]
     lib.mmt_compute_ranges.restype = None
     lib.mmt_compute_ranges.argtypes = [
         u64p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int64, i32p,
-    ]
-    lib.mmt_scatter_max.restype = None
-    lib.mmt_scatter_max.argtypes = [i32p, i64p, i32p, ctypes.c_int64]
-    lib.mmt_tile_starts.restype = None
-    lib.mmt_tile_starts.argtypes = [
-        i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_int64, i32p,
     ]
     lib.mmt_idx_lookup.restype = None
@@ -140,34 +129,11 @@ def _load():
         u64p, i64p, i64p, ctypes.c_int64, i64p, ctypes.c_int64,
         ctypes.c_int, u64p, ctypes.c_int64, i64p, i64p,
     ]
-    lib.mmt_fill_check.restype = None
-    lib.mmt_fill_check.argtypes = [
-        i64p, i64p, i64p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_uint8), i64p,
-    ]
-    i16p = ctypes.POINTER(ctypes.c_int16)
-    lib.mmt_pack_class_flat.restype = None
-    lib.mmt_pack_class_flat.argtypes = [
-        i64p, i64p, ctypes.c_int64, i64p,
-        i32p, i32p, i32p, ctypes.c_int64,
-        i32p, i32p, i16p, i64p, i32p, i64p,
-    ]
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     lib.mmt_seed_mz_flt.restype = None
     lib.mmt_seed_mz_flt.argtypes = [
         u64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_double, u8p,
-    ]
-    lib.mmt_fill_mode.restype = None
-    lib.mmt_fill_mode.argtypes = [ctypes.c_int32]
-    lib.mmt_fill_counts.restype = None
-    lib.mmt_fill_counts.argtypes = [i64p, i64p, i64p]
-    lib.mmt_fill_fetch.restype = None
-    lib.mmt_fill_fetch.argtypes = [i64p, u8p, u8p]
-    lib.mmt_fill_table_bulk.restype = None
-    lib.mmt_fill_table_bulk.argtypes = [
-        ctypes.c_int64, i64p, i64p, u8p, i64p, u8p,
-        i32p, i64p, u32p,
     ]
     lib.mmt_collect_anchors.restype = ctypes.c_int64
     lib.mmt_collect_anchors.argtypes = [
@@ -378,86 +344,6 @@ def chain_backtrack_native(f, p, z_y, min_cnt, min_sc, max_drop):
     return u[:n_u.value].copy(), v[:n_v].copy()
 
 
-def lpt_pack(lens: np.ndarray, lanes: int
-             ) -> tuple[np.ndarray, np.ndarray, int]:
-    """LPT bin packing (chain_tpu._pack_lanes fast path); packing is
-    bit-identical to the Python heapq fallback."""
-    lib = _load()
-    lens = np.ascontiguousarray(lens, dtype=np.int64)
-    n = lens.shape[0]
-    lane_of = np.empty(n, dtype=np.int64)
-    off_of = np.empty(n, dtype=np.int64)
-    height = ctypes.c_int64(0)
-    p = ctypes.POINTER(ctypes.c_int64)
-    lib.mmt_lpt_pack(lens.ctypes.data_as(p), n, lanes,
-                     lane_of.ctypes.data_as(p), off_of.ctypes.data_as(p),
-                     ctypes.byref(height))
-    return lane_of, off_of, int(height.value)
-
-
-def tile_starts(rmax: np.ndarray, H: int, W: int, tile: int,
-                n_tiles: int) -> np.ndarray:
-    """Per-tile dynamic window starts from a per-row range max."""
-    lib = _load()
-    p32 = ctypes.POINTER(ctypes.c_int32)
-    start = np.empty(n_tiles, np.int32)
-    lib.mmt_tile_starts(rmax.ctypes.data_as(p32), H, W, tile, n_tiles,
-                        start.ctypes.data_as(p32))
-    return start
-
-
-def fill_check(qlen: np.ndarray, tlen: np.ndarray, w: np.ndarray,
-               w_band: int) -> tuple[np.ndarray, np.ndarray]:
-    """Vector drop/row-count decisions for fill planning (exact scalar
-    form of ksw2_tpu._row_params + block-base validation)."""
-    lib = _load()
-    p64 = ctypes.POINTER(ctypes.c_int64)
-    qlen = np.ascontiguousarray(qlen, np.int64)
-    tlen = np.ascontiguousarray(tlen, np.int64)
-    w = np.ascontiguousarray(w, np.int64)
-    n = qlen.shape[0]
-    dropped = np.empty(n, np.uint8)
-    r_true = np.empty(n, np.int64)
-    lib.mmt_fill_check(qlen.ctypes.data_as(p64), tlen.ctypes.data_as(p64),
-                       w.ctypes.data_as(p64), n, w_band,
-                       dropped.ctypes.data_as(
-                           ctypes.POINTER(ctypes.c_uint8)),
-                       r_true.ctypes.data_as(p64))
-    return dropped.astype(bool), r_true
-
-
-def pack_class_flat(cuts: np.ndarray, sel: np.ndarray, off_of: np.ndarray,
-                    x32: np.ndarray, y32: np.ndarray, rng: np.ndarray,
-                    W: int, H: int, n_real: int, n_pad: int,
-                    flat: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
-    """One-pass per-class pack into the flat 10 B/anchor uplink layout
-    [x32 | y32 | rng16 | seg-meta] (chain_tpu.dispatch_scores fast path).
-    Writes x/y/rng in place into `flat` (int32, zeroed, len >= 2.5*n_pad);
-    returns (src, rmax, pairs)."""
-    lib = _load()
-    p16 = ctypes.POINTER(ctypes.c_int16)
-    p32 = ctypes.POINTER(ctypes.c_int32)
-    p64 = ctypes.POINTER(ctypes.c_int64)
-    cuts = np.ascontiguousarray(cuts, dtype=np.int64)
-    sel = np.ascontiguousarray(sel, dtype=np.int64)
-    off_of = np.ascontiguousarray(off_of, dtype=np.int64)
-    src = np.empty(n_real, np.int64)
-    rmax = np.zeros(H, np.int32)
-    pairs = ctypes.c_int64(0)
-    fx = flat[:n_pad]
-    fy = flat[n_pad:2 * n_pad]
-    fr = flat[2 * n_pad:2 * n_pad + n_pad // 2]
-    lib.mmt_pack_class_flat(
-        cuts.ctypes.data_as(p64), sel.ctypes.data_as(p64), sel.shape[0],
-        off_of.ctypes.data_as(p64),
-        x32.ctypes.data_as(p32), y32.ctypes.data_as(p32),
-        rng.ctypes.data_as(p32), W,
-        fx.ctypes.data_as(p32), fy.ctypes.data_as(p32),
-        fr.ctypes.data_as(p16), src.ctypes.data_as(p64),
-        rmax.ctypes.data_as(p32), ctypes.byref(pairs))
-    return src, rmax, int(pairs.value)
-
-
 def idx_lookup(uniq: np.ndarray, start: np.ndarray, cnt: np.ndarray,
                boff: np.ndarray, n_buckets: int, shift: int,
                q: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -478,7 +364,7 @@ def idx_lookup(uniq: np.ndarray, start: np.ndarray, cnt: np.ndarray,
 
 def compute_ranges(ax: np.ndarray, bounds: np.ndarray, max_dist: int,
                    max_iter: int) -> np.ndarray:
-    """Native successor-range selection (chain_tpu.compute_ranges)."""
+    """Native successor-range selection (chain_device.compute_ranges)."""
     lib = _load()
     ax = np.ascontiguousarray(ax, dtype=np.uint64)
     bounds = np.ascontiguousarray(bounds, dtype=np.int64)
@@ -489,24 +375,6 @@ def compute_ranges(ax: np.ndarray, bounds: np.ndarray, max_dist: int,
         bounds.shape[0], max_dist, max_iter,
         rng.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
     return rng
-
-
-def pack_meta(rows: np.ndarray, rng_src: np.ndarray, H: int, W: int,
-              tile: int, n_tiles: int) -> np.ndarray:
-    """rmax scatter-max + per-tile window starts (chain_tpu packing)."""
-    lib = _load()
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    rng_src = np.ascontiguousarray(rng_src, dtype=np.int32)
-    rmax = np.zeros(H, np.int32)
-    p32 = ctypes.POINTER(ctypes.c_int32)
-    p64 = ctypes.POINTER(ctypes.c_int64)
-    lib.mmt_scatter_max(rmax.ctypes.data_as(p32),
-                        rows.ctypes.data_as(p64),
-                        rng_src.ctypes.data_as(p32), rows.shape[0])
-    start = np.empty(n_tiles, np.int32)
-    lib.mmt_tile_starts(rmax.ctypes.data_as(p32), H, W, tile, n_tiles,
-                        start.ctypes.data_as(p32))
-    return start
 
 
 def seed_mz_flt_mask(keys: np.ndarray, q_occ_max: int,
@@ -521,54 +389,6 @@ def seed_mz_flt_mask(keys: np.ndarray, q_occ_max: int,
         n, q_occ_max, q_occ_frac,
         keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return keep.view(bool)
-
-
-def fill_mode(mode: int) -> None:
-    """Set the native align1 fill-session mode: 0 off (clears the
-    table), 1 collect, 2 table (see csrc/alignkit.cpp FillSession)."""
-    _load().mmt_fill_mode(mode)
-
-
-def fill_fetch() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Drain the collected fills: (meta (n,4) int64 [ql,tl,w,zdrop],
-    qblob uint8, tblob uint8; sequences concatenated in meta order)."""
-    lib = _load()
-    n = ctypes.c_int64()
-    qb = ctypes.c_int64()
-    tb = ctypes.c_int64()
-    lib.mmt_fill_counts(ctypes.byref(n), ctypes.byref(qb), ctypes.byref(tb))
-    meta = np.empty((n.value, 4), np.int64)
-    qblob = np.empty(qb.value, np.uint8)
-    tblob = np.empty(tb.value, np.uint8)
-    if n.value:
-        i64 = ctypes.POINTER(ctypes.c_int64)
-        u8 = ctypes.POINTER(ctypes.c_uint8)
-        lib.mmt_fill_fetch(meta.ctypes.data_as(i64),
-                           qblob.ctypes.data_as(u8),
-                           tblob.ctypes.data_as(u8))
-    return meta, qblob, tblob
-
-
-def fill_table_bulk(meta: np.ndarray, qoff: np.ndarray, qblob: np.ndarray,
-                    toff: np.ndarray, tblob: np.ndarray,
-                    scores: np.ndarray, cig_off: np.ndarray,
-                    cig_blob: np.ndarray) -> None:
-    """Load device fill results into the native lookup table."""
-    lib = _load()
-    i64 = ctypes.POINTER(ctypes.c_int64)
-    u8 = ctypes.POINTER(ctypes.c_uint8)
-    lib.mmt_fill_table_bulk(
-        meta.shape[0],
-        np.ascontiguousarray(meta, np.int64).ctypes.data_as(i64),
-        np.ascontiguousarray(qoff, np.int64).ctypes.data_as(i64),
-        np.ascontiguousarray(qblob, np.uint8).ctypes.data_as(u8),
-        np.ascontiguousarray(toff, np.int64).ctypes.data_as(i64),
-        np.ascontiguousarray(tblob, np.uint8).ctypes.data_as(u8),
-        np.ascontiguousarray(scores, np.int32).ctypes.data_as(
-            ctypes.POINTER(ctypes.c_int32)),
-        np.ascontiguousarray(cig_off, np.int64).ctypes.data_as(i64),
-        np.ascontiguousarray(cig_blob, np.uint32).ctypes.data_as(
-            ctypes.POINTER(ctypes.c_uint32)))
 
 
 def collect_anchors(occ_pos: np.ndarray, start: np.ndarray, cnt: np.ndarray,

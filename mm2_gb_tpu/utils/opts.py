@@ -46,8 +46,7 @@ MM_F_RMQ = 0x80000000
 MM_F_QSTRAND = 0x100000000
 MM_F_NO_INV = 0x200000000
 MM_F_NO_HASH_NAME = 0x400000000
-MM_F_TPU_CHAIN = 0x800000000  # analog of MM_F_GPU_CHAIN: chain on the TPU
-MM_F_TPU_ALIGN = 0x1000000000  # gap-fill extension DP on the TPU (ksw2_tpu)
+MM_F_GPU_CHAIN = 0x800000000  # mm2-gb's MM_F_GPU_CHAIN: chain on the GPU
 
 # index flags
 MM_I_HPC = 0x1
@@ -140,8 +139,6 @@ class MapOptions:
     dbg_print_chain: bool = False
     dbg_print_qname: bool = False
     dbg_print_aln_seq: bool = False
-    # device (TPU) chaining config — analog of the reference's GPU JSON tier
-    tpu_config_file: str = ""
 
 
 def set_preset(preset: str | None) -> tuple[IndexOptions, MapOptions]:

@@ -82,57 +82,53 @@ def random_repetitive_reference(length: int, seed: int = 11,
     return ref.tobytes().decode()
 
 
-def materialize_ultralong(n_reads: int = 40, base_dir: str = "/tmp"
-                          ) -> tuple[str, str]:
-    """Ultra-long repeat-rich flowcell: 8 Mbp reference with tandem
-    arrays + 100-300 kb reads (the reference's over50k case).  Exercises
-    the window-class ladder above 768 (ROOFLINE §3's parked gap)."""
+def _write_fasta(path: str, records) -> None:
+    """Write [(name, seq)] as FASTA (80-column lines), atomically."""
     import os
-    d = os.path.join(base_dir, f"mm2tpu_bench_ul{n_reads}")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        for name, seq in records:
+            f.write(f">{name}\n")
+            f.write("\n".join(seq[i:i + 80]
+                              for i in range(0, len(seq), 80)))
+            f.write("\n")
+    os.replace(tmp, path)
+
+
+def _materialize(d: str, make_ref, n_reads: int, min_len: int,
+                 max_len: int, seed: int) -> tuple[str, str]:
+    import os
     os.makedirs(d, exist_ok=True)
     ref_fa = os.path.join(d, "ref.fa")
     reads_fa = os.path.join(d, "reads.fa")
     if not (os.path.exists(ref_fa) and os.path.exists(reads_fa)):
-        ref = random_repetitive_reference(8_000_000, seed=11)
-        reads = simulate_readset(ref, n_reads, 100_000, 300_000, seed=12)
-        tmp = ref_fa + ".tmp"
-        with open(tmp, "w") as f:
-            f.write(">chr1\n")
-            for i in range(0, len(ref), 80):
-                f.write(ref[i:i + 80] + "\n")
-        os.replace(tmp, ref_fa)
-        tmp = reads_fa + ".tmp"
-        with open(tmp, "w") as f:
-            for name, seq in reads:
-                f.write(f">{name}\n{seq}\n")
-        os.replace(tmp, reads_fa)
+        ref = make_ref()
+        reads = simulate_readset(ref, n_reads, min_len, max_len, seed=seed)
+        _write_fasta(ref_fa, [("chr1", ref)])
+        _write_fasta(reads_fa, reads)
     return ref_fa, reads_fa
 
 
-def materialize_flowcell(n_reads: int, base_dir: str = "/tmp"
-                         ) -> tuple[str, str]:
-    """Write (and cache on disk) the standard bench flowcell: a 4 Mbp
-    random reference and `n_reads` 10-100 kb ONT-like reads.  Both
-    bench.py and tools/chip_smoke.py draw from here so their byte gates
-    compare identical inputs; the directory is keyed on n_reads so
-    different sizes never clobber each other."""
+def materialize_ultralong(n_reads: int, base_dir: str) -> tuple[str, str]:
+    """Ultra-long repeat-rich flowcell under base_dir: an 8 Mbp
+    reference with tandem arrays + 100-300 kb reads (the reference's
+    over50k case), whose segments reach the 5000-anchor range cap."""
     import os
-    d = os.path.join(base_dir, f"mm2tpu_bench_fc{n_reads}")
-    os.makedirs(d, exist_ok=True)
-    ref_fa = os.path.join(d, "ref.fa")
-    reads_fa = os.path.join(d, "reads.fa")
-    if not (os.path.exists(ref_fa) and os.path.exists(reads_fa)):
-        ref = random_reference(4_000_000, seed=1)
-        reads = simulate_readset(ref, n_reads, 10_000, 100_000, seed=3)
-        tmp = ref_fa + ".tmp"
-        with open(tmp, "w") as f:
-            f.write(">chr1\n")
-            for i in range(0, len(ref), 80):
-                f.write(ref[i:i + 80] + "\n")
-        os.replace(tmp, ref_fa)
-        tmp = reads_fa + ".tmp"
-        with open(tmp, "w") as f:
-            for name, seq in reads:
-                f.write(f">{name}\n{seq}\n")
-        os.replace(tmp, reads_fa)
-    return ref_fa, reads_fa
+    return _materialize(
+        os.path.join(base_dir, f"ul{n_reads}"),
+        lambda: random_repetitive_reference(8_000_000, seed=11), n_reads,
+        100_000, 300_000, seed=12)
+
+
+def materialize_flowcell(n_reads: int, base_dir: str) -> tuple[str, str]:
+    """Write (and keep on disk under base_dir) the standard ONT flowcell:
+    a 100 Mbp reference with planted tandem arrays (the ultra-long
+    reference's repeat density) and `n_reads` 10-100 kb ONT-like reads.
+    The directory is keyed on n_reads so sizes never clobber each
+    other."""
+    import os
+    return _materialize(
+        os.path.join(base_dir, f"fc{n_reads}"),
+        lambda: random_repetitive_reference(100_000_000, seed=1,
+                                            n_arrays=750),
+        n_reads, 10_000, 100_000, seed=3)

@@ -5,7 +5,7 @@ from setuptools import find_packages, setup
 setup(
     name="mm2-gb-tpu",
     version="0.1.0",
-    description="TPU-native long-read mapper with mm2-gb capabilities",
+    description="Long-read mapper with mm2-gb GPU chaining in JAX",
     packages=find_packages(include=["mm2_gb_tpu", "mm2_gb_tpu.*"]),
     python_requires=">=3.10",
     install_requires=["numpy", "jax"],

@@ -115,31 +115,3 @@ def test_native_align1_indel_dense():
     a = _map_all(index, mo, reads, force_python=False)
     b = _map_all(index, mo, reads, force_python=True)
     assert a == b
-
-
-def test_device_fill_collection_not_empty():
-    """The speculative device-fill collect pass must actually collect on
-    a plain genomic -c workload.  Regression: bed_junc returns an
-    all-zero array even with no BED loaded, and a `junc is None` gate in
-    _align_pair silently disabled every device fill (the --tpu-align
-    path then fell back to the host for 100% of alignments while its
-    byte gates kept passing)."""
-    from collections import Counter
-
-    from mm2_gb_tpu.models import pipeline
-    from mm2_gb_tpu.ops import align as align_ops
-
-    from mm2_gb_tpu.utils.fastx import SeqRecord
-
-    index, mo, reads = _setup("map-ont", n_reads=4, lo=5_000, hi=12_000,
-                              seed=31)
-    recs = [SeqRecord(i, name, seq) for i, (name, seq) in enumerate(reads)]
-    align_ops.collect_ext = True
-    align_ops.begin_fill_collect()
-    try:
-        pipeline.map_batch_tpu(index, mo, recs)
-    finally:
-        fills = align_ops.end_fill_collect()
-        align_ops.collect_ext = False
-    kinds = Counter(f[0] for f in fills)
-    assert kinds.get("fill", 0) > 0, kinds

@@ -65,20 +65,3 @@ def test_ksw2_splice_case(idx):
     ez = exts2(qseq, tseq, mat, c["q"], c["e"], c["q2"], c["e2"],
                c["zdrop"], c["w"], c["flag"], junc)
     assert _fmt(ez) == c["golden"], f"case {idx}: {c}"
-
-
-def test_size_classes_modes(monkeypatch):
-    """ops/ksw2_tpu._size_classes: 'oracle' (implicit CPU resolution)
-    disables device classes; explicit interpret caps at 1024 unless
-    MM2TPU_INTERPRET_MAX_CLASS overrides; compiled mode keeps all."""
-    from mm2_gb_tpu.ops import ksw2_tpu as KT
-
-    assert KT._size_classes("oracle") == ()
-    assert KT._size_classes(False) == KT.DEVICE_SIZE_CLASSES
-    assert KT.DEVICE_SIZE_CLASSES[-len(KT.SIZE_CLASSES):] == KT.SIZE_CLASSES
-    monkeypatch.delenv("MM2TPU_INTERPRET_MAX_CLASS", raising=False)
-    assert KT._size_classes(True) == (64, 128, 256, 512, 1024)
-    monkeypatch.setenv("MM2TPU_INTERPRET_MAX_CLASS", "4096")
-    assert KT._size_classes(True) == KT.DEVICE_SIZE_CLASSES
-    monkeypatch.setenv("MM2TPU_INTERPRET_MAX_CLASS", "1")
-    assert KT._size_classes(True) == (64,)

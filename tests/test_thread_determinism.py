@@ -3,14 +3,14 @@
 The reference ships tsan as a build mode (Makefile:33-41) to guard its
 kt_for pipeline; the analog here is a byte-identity gate over the two
 threaded runtimes this package has — the host pipeline's map pool
-(models/stream.py) and the TPU pipeline's fan-out finish
+(models/stream.py) and the device pipeline's fan-out finish
 (models/pipeline.py finish_slices) — run at -t 1/4/8 on a simulated
 flowcell.  Output order and bytes must not depend on scheduling.
 
-Scale knobs (CI runs bigger than the default local suite):
-  MM2TPU_DET_READS   flowcell size        [96]
-  MM2TPU_DET_TPU=1   also gate --tpu-chain -t N (interpret kernels;
-                     needs a warm persistent cache to be fast)
+Scale knob (CI runs bigger than the default local suite):
+  MM2TPU_DET_READS   host flowcell size        [96]
+The device pipeline runs its chain kernel in interpret mode here, so it
+is gated on a 16-read prefix of the same flowcell.
 """
 
 import contextlib
@@ -67,12 +67,13 @@ def test_host_pipeline_thread_independent(flowcell, extra):
     assert outs[0] == outs[1] == outs[2]
 
 
-@pytest.mark.skipif(os.environ.get("MM2TPU_DET_TPU") != "1",
-                    reason="interpret chain kernels: set MM2TPU_DET_TPU=1")
-def test_tpu_pipeline_thread_independent(flowcell):
-    """--tpu-chain's fan-out finish (ordered emit) at -t 1/4/8."""
-    ref_fa, reads_fa = flowcell
-    outs = [_run_cli(["--max-chain-skip=2147483647", "--tpu-chain", "-t",
+def test_tpu_pipeline_thread_independent(flowcell, tmp_path):
+    """--gpu-chain's fan-out finish (ordered emit) at -t 1/4/8."""
+    ref_fa, all_fa = flowcell
+    reads_fa = str(tmp_path / "reads16.fa")
+    with open(all_fa) as f, open(reads_fa, "w") as g:
+        g.writelines(f.readlines()[:32])
+    outs = [_run_cli(["--max-chain-skip=2147483647", "--gpu-chain", "-t",
                       str(t), "-c", ref_fa, reads_fa])
             for t in (1, 4, 8)]
     assert outs[0], "empty mapping output"
